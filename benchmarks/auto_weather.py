@@ -11,7 +11,7 @@ detects the weather gap-extrapolation pathology, demotes to
 The timed section is optimize()+predict end-to-end from a fresh
 model; the guard's own wall-clock (including its one-off twin
 compiles) is reported separately from the main training via the
-model's INFO log timing. Writes benchmarks/out/auto_weather_r05.json.
+model's INFO log timing. Writes benchmarks/out/auto_weather.json.
 
 Usage: python benchmarks/auto_weather.py [--m 500]
 """
@@ -31,9 +31,10 @@ os.environ.setdefault("JAX_ENABLE_X64", "1")
 import jax  # noqa: E402
 
 jax.config.update("jax_enable_x64", True)
-jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
-jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+
+from runlmc_tpu import config  # noqa: E402
+
+config.enable_compile_cache()
 
 
 def _log(*a):
@@ -113,7 +114,7 @@ def main():
     print(json.dumps(out))
     path = os.path.join(
         os.path.dirname(os.path.abspath(__file__)), "out",
-        "auto_weather_r05.json",
+        "auto_weather.json",
     )
     with open(path, "w") as f:
         json.dump(out, f, indent=1)

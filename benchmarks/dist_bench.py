@@ -12,12 +12,11 @@ Efficiency = t_single / t_dist isolates the cross-process overhead of
 the distributed runtime on this workload (the per-RHS solver loop has
 ZERO intra-loop collectives, so the overhead is dispatch + the
 result/residual gathers). HONEST CAVEAT: virtual CPU devices share the
-host's physical cores and Gloo over loopback is not ICI — this is a
-correct distributed-program overhead measurement, not a hardware
-scaling claim (real multi-chip scaling evidence: scaling.py --mode
-batch on the TPU + the derived per-chip efficiencies).
+host's physical cores and Gloo over loopback is not a device
+interconnect — this is a correct distributed-program overhead
+measurement, not a hardware scaling claim.
 
-Writes benchmarks/out/dist_bench_r05.json.
+Writes benchmarks/out/dist_bench.json.
 
 Usage: python benchmarks/dist_bench.py
 """
@@ -93,15 +92,15 @@ def main():
         "two_process": d0,
         "note": (
             "virtual CPU devices share physical cores and Gloo-over-"
-            "loopback is not ICI: this isolates the distributed "
-            "runtime's dispatch/collective overhead on the sharded "
-            "solve, not hardware scaling"
+            "loopback is no device interconnect: this isolates the "
+            "distributed runtime's dispatch/collective overhead on the "
+            "sharded solve, not hardware scaling"
         ),
     }
     print(json.dumps(out))
     path = os.path.join(
         os.path.dirname(os.path.abspath(__file__)), "out",
-        "dist_bench_r05.json",
+        "dist_bench.json",
     )
     with open(path, "w") as f:
         json.dump(out, f, indent=1)

@@ -12,8 +12,8 @@ benchmark's guard twin incrementally (AdaDelta resumable state) and
 recording (z^2, zero-variance fraction, breach?) at increasing
 iteration counts.
 
-CPU-only (f64; the guard itself is platform-independent), no TPU use.
-Writes benchmarks/out/guard_calibration_r05.json.
+CPU-only (f64; the guard itself is platform-independent).
+Writes benchmarks/out/guard_calibration.json.
 
 Usage: python benchmarks/guard_calibration.py [--quick]
 """
@@ -130,7 +130,7 @@ def main():
     print(json.dumps(out))
     path = os.path.join(
         os.path.dirname(os.path.abspath(__file__)), "out",
-        "guard_calibration_r05.json",
+        "guard_calibration.json",
     )
     with open(path, "w") as f:
         json.dump(out, f, indent=1)

@@ -1,6 +1,5 @@
 """Per-stage profile of the beyond-dense-cap training step (weather
-m=2500) on the real TPU — round-4 verdict item 1: "nobody has profiled
-where the 7.9 s goes".
+m=2500), on the host clock.
 
 Each candidate cost center of one stochastic-objective optimizer step
 is timed as its OWN jitted program (all large arrays passed as
@@ -8,8 +7,8 @@ arguments, never closures — see interpolated_llgp._build_jit note):
 
   precond_factorize  per-step f32 Woodbury factorization (exact-fine
                      geometry at m<=PRECOND_MAX_GRID/D)
-  tiled_f64_matvec   one model-dtype (emulated-f64) exact tiled
-                     K matvec on the (1+15)-RHS training batch
+  tiled_f64_matvec   one model-dtype exact tiled K matvec on the
+                     (1+15)-RHS training batch
   fft_f32_matvec     one f32 Fourier fine matvec on the same batch
   solve              the full certified multi-RHS solve (f32 inner
                      cycles + f64 true-residual refinement)
@@ -19,7 +18,7 @@ arguments, never closures — see interpolated_llgp._build_jit note):
                      (the ROUND-5 `diff_data` path)
   full_step          the production fused chunk program, per step
 
-Prints one JSON line and writes benchmarks/out/profile_m2500_r05.json.
+Prints one JSON line and writes benchmarks/out/profile_m2500.json.
 
 Usage: python benchmarks/profile_m2500.py [--m 2500]
 """
@@ -38,9 +37,10 @@ os.environ.setdefault("JAX_ENABLE_X64", "1")
 import jax  # noqa: E402
 
 jax.config.update("jax_enable_x64", True)
-jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
-jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+
+from runlmc_tpu import config  # noqa: E402
+
+config.enable_compile_cache()
 
 import jax.numpy as jnp  # noqa: E402
 from jax.flatten_util import ravel_pytree  # noqa: E402
@@ -200,7 +200,7 @@ def main():
     print(json.dumps(out))
     path = os.path.join(
         os.path.dirname(os.path.abspath(__file__)), "out",
-        "profile_m%d_r05.json" % args.m,
+        "profile_m%d.json" % args.m,
     )
     with open(path, "w") as f:
         json.dump(out, f, indent=1)

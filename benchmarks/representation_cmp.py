@@ -46,9 +46,7 @@ def run_config(D, R, Q, n, seed=0):
     data = lk.flatten_data(Xs, Ys)
     # follow the x64 setting: the reference protocol is f64 with an
     # ABSOLUTE residual tolerance 1e-4 (iterative.py:36-42); f32
-    # stalls above it on the harder configs (TPU fft mode is f32 —
-    # the recorded run is CPU f64, matching the reference's own
-    # 1-thread-CPU protocol for this table)
+    # stalls above it on the harder configs
     dt = jnp.float64 if jax.config.jax_enable_x64 else jnp.float32
     y = jnp.asarray(data.y, dtype=dt)
 

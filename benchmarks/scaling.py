@@ -3,8 +3,8 @@ BASELINE.json north star: >=80% matvec-throughput scaling efficiency).
 
 Two measurements, each printed as a JSON line:
 
-1. ``--mode batch`` (run on the TPU): throughput of the fused
-   multi-RHS direct solve vs batch size on one chip. The solve batch is
+1. ``--mode batch`` (run on the GPU): throughput of the fused
+   multi-RHS direct solve vs batch size on one device. The solve batch is
    the framework's data-parallel axis (observations + Hutchinson probes
    + prediction columns); near-flat time vs batch = the hardware is not
    yet saturated and sharding more RHS per step is free.
@@ -176,6 +176,7 @@ def run_mesh_scaling():
             + " --xla_force_host_platform_device_count=%d" % n_dev
         ).strip()
         env["SCALING_CHILD"] = str(n_dev)
+        env["JAX_PLATFORMS"] = "cpu"  # virtual devices, off the GPU
         out = subprocess.run(
             [sys.executable, os.path.abspath(__file__)],
             env=env, capture_output=True, text=True, timeout=1200,
@@ -268,7 +269,7 @@ def run_mesh_analysis():
     of the 8-way program). 1.0 = the mesh splits ALL work; below that,
     the replicated fraction (per-step factorization, parameter-sized
     ops) bounds scaling. This replaces wall-clock on virtual shared-core
-    devices, which measures nothing (scaling_mesh_r02.json)."""
+    devices, which measures nothing."""
     rows = {}
     for n_dev in (1, 8):
         env = dict(os.environ)
@@ -277,6 +278,7 @@ def run_mesh_analysis():
             + " --xla_force_host_platform_device_count=%d" % n_dev
         ).strip()
         env["SCALING_ANALYZE"] = str(n_dev)
+        env["JAX_PLATFORMS"] = "cpu"
         out = subprocess.run(
             [sys.executable, os.path.abspath(__file__)],
             env=env, capture_output=True, text=True, timeout=1200,
@@ -295,8 +297,8 @@ def run_mesh_analysis():
                   "sharded Krylov loop is underweighted relative to "
                   "one-time replicated setup — treat these numbers as "
                   "a partition-structure check (how much of the "
-                  "PROGRAM is sharded), and --mode batch on the real "
-                  "TPU as the throughput-scaling evidence"),
+                  "PROGRAM is sharded), and --mode batch on the GPU "
+                  "as the throughput-scaling evidence"),
               "objectives": {}}
     for objective in ("exact", "stochastic", "stochastic-fft"):
         f1 = rows[1]["objectives"][objective]["flops_per_device"]

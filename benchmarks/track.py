@@ -5,8 +5,8 @@ per commit; reference benchmarks/asv/*/[fx2007|weather].py).
 Runs the three benchmark configs in --validate scale (CPU-runnable, so
 CI can execute it) and appends one JSON line per metric to
 ``benchmarks/out/history.jsonl`` keyed by commit hash and timestamp.
-Full-scale TPU numbers land in the same history when ``--full`` results
-exist (bench.py output piped through ``--record``).
+Full-scale device numbers land in the same history through
+``--record`` (a bench.py output file).
 
 Usage:
   python benchmarks/track.py                 # validate-scale, append
@@ -57,8 +57,8 @@ def record_file(path):
 
 def run_validate_tracking():
     # validate scale is a CI smoke — pin CPU so the tracking run never
-    # occupies (or queues behind) the TPU; full-scale numbers arrive
-    # via --record from real bench.py runs
+    # occupies (or queues behind) the accelerator; full-scale numbers
+    # arrive via --record from real bench.py runs
     import jax
 
     jax.config.update("jax_platforms", "cpu")

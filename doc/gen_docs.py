@@ -135,7 +135,7 @@ def main():
         )
     body = (
         "<h1>runlmc_tpu — API documentation</h1>"
-        "<p>TPU-native multi-output GP framework (SKI LMC). Generated "
+        "<p>Multi-output GP framework (SKI LMC) on JAX. Generated "
         "from module docstrings by <code>doc/gen_docs.py</code>; the "
         "analog of the reference's sphinx apidoc build "
         "(reference doc/conf.py, docbuild.sh).</p><ul>%s</ul>"

@@ -2,7 +2,7 @@
 as a runnable script: two noisy outputs (sin / offset-sin), a Q=2
 rank-1 RBF LMC kernel, fit + predict + quantiles.
 
-Run:  python examples/example.py          (TPU if available)
+Run:  python examples/example.py          (GPU if available)
       JAX_PLATFORMS=cpu python examples/example.py
 """
 

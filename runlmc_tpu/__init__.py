@@ -1,10 +1,10 @@
 """
-runlmc_tpu — a TPU-native (JAX/XLA/Pallas) framework for matrix-free
-inference and hyperparameter learning of multi-output Gaussian processes
-under the Linear Model of Coregionalization (LMC).
+runlmc_tpu — a JAX/XLA framework for matrix-free inference and
+hyperparameter learning of multi-output Gaussian processes under the
+Linear Model of Coregionalization (LMC), for accelerators.
 
 This is a from-scratch rebuild of the capabilities of vlad17/runlmc
-(reference layout surveyed in SURVEY.md), designed TPU-first:
+(reference layout surveyed in SURVEY.md):
 
 - the SKI covariance ``K = W K_UU W^T + diag(eps)`` is evaluated as one
   fused, jitted matvec: interpolation scatter -> batched n-D real FFT ->

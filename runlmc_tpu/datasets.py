@@ -4,13 +4,13 @@ Behavioral parity with the reference's benchlib loaders
 (benchmarks/benchlib/standard_tester.py:69-167): same holdout windows,
 same missing-data handling, same train/test splits. Data files are read
 from ``RUNLMC_DATA`` (default: the reference checkout's data directory,
-mounted read-only) — the loaders only *read* there.
+mounted read-only) — the loaders only *read* there. The fx2007 and
+weather loaders need pandas; importing this module does not.
 """
 
 import os
 
 import numpy as np
-import pandas as pd
 
 DEFAULT_DATA_DIR = os.environ.get("RUNLMC_DATA", "/root/reference/data")
 
@@ -19,6 +19,8 @@ def fx2007(datadir=None):
     """Foreign-exchange 2007 benchmark (Nguyen & Bonilla 2014): D=13
     currency outputs over 2007 trading days; CAD/JPY/AUD have held-out
     windows. Returns (xss, yss, test_xss, test_yss, test_cols, cols)."""
+    import pandas as pd
+
     datadir = datadir or DEFAULT_DATA_DIR
     files = ["2007-2009.csv", "2010-2013.csv", "2014-2017.csv"]
     fx = pd.concat(
@@ -59,6 +61,8 @@ def weather(datadir=None):
     """Weather-sensor benchmark: D=4 air-temperature series (~15.8k
     points), with held-out time windows for 'cam' and 'chi' and NaN
     drops. Returns (xss, yss, test_xss, test_yss, sensors)."""
+    import pandas as pd
+
     datadir = datadir or DEFAULT_DATA_DIR
     sensors = ["bra", "cam", "chi", "sot"]
     holdout = [None, (10.2, 10.8), (13.5, 14.2), None]

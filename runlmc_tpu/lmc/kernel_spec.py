@@ -22,6 +22,7 @@ with three kernel kinds (parity: functional_kernel.py:199-209):
 import dataclasses
 from typing import Dict, Optional, Tuple
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import scipy.stats
@@ -218,7 +219,10 @@ class LMCKernelSpec:
         mats = []
         for q in idxs:
             a = self.coreg_vec(raw_params, q)
-            mats.append(a.T @ a + jnp.diag(self.coreg_diag(raw_params, q)))
+            # full-f32 product: B_q feeds the f32 Woodbury factorization
+            # (the default may run f32 products in TF32 on GPUs)
+            aa = jnp.matmul(a.T, a, precision=jax.lax.Precision.HIGHEST)
+            mats.append(aa + jnp.diag(self.coreg_diag(raw_params, q)))
         return jnp.stack(mats)
 
     def noise(self, raw_params):

@@ -90,7 +90,8 @@ def cross_kernel(spec: LMCKernelSpec, raw_params, Xa, oidx_a, Xb, oidx_b):
         dists = pairwise_dists(Xa, Xb, active_dim)
         for q in kidxs:
             a = spec.coreg_vec(raw_params, q)
-            Bq = a.T @ a + jnp.diag(spec.coreg_diag(raw_params, q))
+            aa = jnp.matmul(a.T, a, precision=jax.lax.Precision.HIGHEST)
+            Bq = aa + jnp.diag(spec.coreg_diag(raw_params, q))
             scale = Bq[oidx_a][:, oidx_b]  # (na, nb) block scaling
             K = K + scale * spec.eval_kernel(raw_params, q, dists)
     return K
@@ -110,7 +111,7 @@ def exact_mll(spec: LMCKernelSpec, raw_params, X, oidx, y):
     oracle gradient path (replaces ExactDeriv, exact_deriv.py:9-23)."""
     K = exact_dense_K(spec, raw_params, X, oidx)
     # XLA's blocked cholesky/trisolve run internal matmuls at default
-    # precision (bf16 on TPU) — force full-precision multiplies
+    # precision (TF32 for f32 on GPUs) — force full-precision multiplies
     with jax.default_matmul_precision("highest"):
         L = jnp.linalg.cholesky(K)
         alpha = jax.scipy.linalg.cho_solve((L, True), y)
@@ -239,13 +240,13 @@ def exact_ski_mll(
     the direct factorization (woodbury.py) gives its log-determinant and
     quadratic form in closed form, and autodiff through the Cholesky
     factors yields the exact gradient of K~'s MLL — no Hutchinson
-    probes, no Krylov iterations, no trace-estimator variance. This is
-    the TPU-native replacement for the entire stochastic machinery the
-    reference needs (stochastic_deriv.py:12-78): where a CPU cannot
-    afford a (Dm)^3 factorization per optimizer step, the MXU does it
-    in milliseconds, so the unbiased-but-noisy estimator is simply
-    unnecessary at benchmark grid sizes. (The stochastic surrogate
-    remains the path for fft-mode grids too large to factorize.)
+    probes, no Krylov iterations, no trace-estimator variance. This
+    replaces the entire stochastic machinery the reference needs
+    (stochastic_deriv.py:12-78): the reference's CPU cannot afford a
+    (Dm)^3 factorization per optimizer step, an accelerator can at
+    benchmark grid sizes, so the unbiased-but-noisy estimator is
+    unnecessary there. (The stochastic surrogate remains the path for
+    fft-mode grids too large to factorize.)
 
     Returns ``(mll, StochasticAux)`` — aux carries the (detached) alpha,
     a relative residual certifying the factorization's solve quality,
@@ -371,7 +372,7 @@ def stochastic_surrogate_from_solves(
         [jax.lax.stop_gradient(alpha)[None], probes], axis=0
     ).astype(cdtype)
     applied = K.matvec(operands)
-    hi = jax.lax.Precision.HIGHEST  # TPU dots default to bf16 multiplies
+    hi = jax.lax.Precision.HIGHEST  # no TF32 for f32 dots on GPUs
     quad_term = 0.5 * jnp.einsum(
         "n,n->", operands[0], applied[0], precision=hi
     )
@@ -429,13 +430,12 @@ def stochastic_mll_surrogate(
     stochastic_deriv.py:51-52).
 
     ``diff_data``: optional grid artifacts for the DIFFERENTIABLE
-    covariance application (defaults to ``grid_data``). The
-    beyond-dense-cap TPU path passes the f32 fft fine twin here: the
-    gradient contraction (and its backward pass) then runs at f32 FFT
-    speed instead of through the emulated-f64 'tiled' gather — whose
-    backward is a scatter-add over Q*m^2 elements, measured to
-    dominate the weather-m=2500 training step. Gradient rounding from
-    the downcast is ~1e-6 relative, orders below the 15-probe
+    covariance application (defaults to ``grid_data``). 'tiled'-mode
+    models pass the f32 fft fine twin here: the gradient contraction
+    (and its backward pass) then runs through the f32 FFT instead of
+    the 'tiled' gather — whose backward is a scatter-add over Q*m^2
+    elements. Gradient rounding from the downcast is ~1e-6 relative,
+    orders below the 15-probe
     estimator's own 0.6-10% noise band
     (tests/test_large_grid.py::test_f32_diff_gradient_accuracy).
     """
@@ -466,8 +466,8 @@ def stochastic_mll_surrogate(
             inner_mv = K32.matvec
 
         def solver_call(b):
-            # inner CG cycles at f32 MXU speed (fine f32 matvec + f32
-            # Woodbury preconditioner); only the outer true-residual
+            # inner CG cycles at f32 (fine f32 matvec + f32 Woodbury
+            # preconditioner); only the outer true-residual
             # refinement pays a model-dtype matvec per cycle
             return woodbury_pcg(
                 K_ng.matvec, wb, b, tol=tol, maxiter=maxiter,
@@ -501,7 +501,9 @@ def stochastic_mll_surrogate(
         alpha=alpha,
         solve_iters=jnp.mean(res.iterations.astype(jnp.float32)),
         solve_error=jnp.mean(res.error),
-        quad=y @ alpha,
+        quad=jnp.einsum(
+            "n,n->", y, alpha, precision=jax.lax.Precision.HIGHEST
+        ),
     )
     return surrogate, aux
 

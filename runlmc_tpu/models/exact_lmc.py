@@ -103,7 +103,7 @@ class ExactLMC(MultiGP):
 
         K = lk.exact_dense_K(self.spec, self.params, self._X, self._oidx)
         # force full-precision multiplies inside the blocked
-        # cholesky/trisolve (bf16 by default on TPU)
+        # cholesky/trisolve (TF32 by default for f32 on GPUs)
         with jax.default_matmul_precision("highest"):
             L = jnp.linalg.cholesky(K)
             alpha = jax.scipy.linalg.cho_solve((L, True), self.y)

@@ -9,7 +9,7 @@ O(m log m) via real FFTs (behavioral parity: reference
 runlmc/linalg/bttb.py:107-148; the reference computes one numpy
 ``rfftn``/``irfftn`` per matvec per operator).
 
-TPU-first design differences:
+Design differences from the reference:
 
 - Everything is expressed on *batched* leading axes. One call transforms a
   whole stack of vectors (probes, RHS, outputs D, latent kernels Q) in a
@@ -157,9 +157,8 @@ def bttb_index_map(sizes):
 
     Host-side, parameter-independent; precompute once per grid. Enables
     the 'dense' grid mode: materialize the (Dm, Dm) grid kernel by a
-    gather and run matvecs on the MXU instead of via FFT — the fast AND
-    float64-capable path on TPU (XLA TPU has no f64 FFT, but f64 matmul
-    is supported), used whenever the grid is small enough.
+    gather and run matvecs as dense matmuls instead of via FFT, used
+    whenever the grid is small enough.
     """
     sizes = tuple(int(s) for s in sizes)
     m = int(np.prod(sizes))
@@ -176,16 +175,15 @@ def bttb_tiled_kuu_matvec(tops, B, x, sizes, tile=None):
     """EXACT LMC grid-kernel matvec computed tile-by-tile from first
     rows: applies K_UU = sum_q B_q (x) T_q to ``x`` without
     materializing the (Dm, Dm) matrix, the (m, m) index map, or any
-    FFT — O(Q m^2 D) MXU work, O(tile * m) memory, ANY dtype.
+    FFT — O(Q m^2 D) matmul work, O(tile * m) memory, ANY dtype.
 
-    This is the float64-capable fine-operator path for grids beyond
-    the dense cap on TPU (XLA TPU has no f64 FFT, and the 'dense'
-    materialization exceeds HBM past ~10^4 grid points): the
-    mixed-precision refinement solvers run their inner Krylov cycles
-    through the f32 Fourier path and pay ONE of these exact matvecs
-    per outer cycle to compute the true residual, so solves certify
-    f64-level tolerances at f32-FFT speed. Fully differentiable w.r.t.
-    ``tops`` and ``B`` (gather + einsum under ``lax.map``).
+    The operator of the explicit ``grid_mode='tiled'``, and an
+    FFT-free reference for the fft-mode grid matvec: the
+    mixed-precision refinement solvers can run their inner Krylov
+    cycles through the f32 Fourier path and pay ONE of these exact
+    matvecs per outer cycle to compute the true residual. Fully
+    differentiable w.r.t. ``tops`` and ``B`` (gather + einsum under
+    ``lax.map``).
 
     :param tops: (Q, m) kernels evaluated on the grid's first row.
     :param B: (Q, D, D) coregionalization matrices.

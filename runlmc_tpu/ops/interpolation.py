@@ -2,7 +2,7 @@
 
 The reference stores the SKI interpolation matrix W as a scipy CSR with
 exactly 4 (1-D) or 16 (2-D) nonzeros per row
-(runlmc/approx/interpolation.py:56-116, 218-328). TPUs have no sparse
+(runlmc/approx/interpolation.py:56-116, 218-328). XLA has no sparse
 formats — but a fixed-nnz-per-row sparse matrix is just a dense gather:
 
   W v      = sum_t  weights[:, t] * v[indices[:, t]]        (gather + dot)
@@ -17,12 +17,12 @@ hyperparameters).
 import logging
 from typing import Any, Tuple
 
-import flax.struct
 import jax
 import jax.numpy as jnp
 import numpy as np
 
 from runlmc_tpu.ops.operators import LinearOperator
+from runlmc_tpu.utils import struct
 
 _LOG = logging.getLogger(__name__)
 
@@ -150,10 +150,10 @@ def interp_output_blocks(Xs, grid_axes):
     diag(W_1, ..., W_D).
 
     Materializing the blocks turns W/W^T applications into per-output
-    MXU matmuls (total cost B * n * m MACs, memory n * m floats) —
-    measured ~100x faster per Krylov iteration on TPU than the
-    gather/scatter path, whose (n * taps)-element scatter-add dominates
-    the f64 solve loop. Host-side, parameter-independent.
+    dense matmuls (total cost B * n * m MACs, memory n * m floats) in
+    place of the gather/scatter path, whose (n * taps)-element
+    scatter-add serializes on colliding indices. Host-side,
+    parameter-independent.
     """
     m = int(np.prod([len(g) for g in grid_axes]))
     blocks = []
@@ -203,14 +203,14 @@ def autogrid(Xs, lo=None, hi=None, m=None):
     ]
 
 
-@flax.struct.dataclass
+@struct.dataclass
 class Interp(LinearOperator):
     """Fixed-width sparse interpolation operator W: (n, ncols) with
     ``taps`` nonzeros per row, stored as gather indices + weights."""
 
     indices: Any  # (n, taps) int32
     weights: Any  # (n, taps)
-    ncols: int = flax.struct.field(pytree_node=False)
+    ncols: int = struct.field(static=True)
 
     @property
     def shape(self):
@@ -219,8 +219,8 @@ class Interp(LinearOperator):
     def matvec(self, v):
         """W v: (..., ncols) -> (..., n) — gather + weighted sum."""
         gathered = jnp.take(v, self.indices, axis=-1)  # (..., n, taps)
-        # full-f32 contraction: TPU einsum defaults to bf16 multiplies,
-        # which put a ~1e-2 noise floor on the whole Krylov solve
+        # full-f32 contraction: a reduced-precision default (TF32 on
+        # GPUs, ~1e-3 relative) would floor the whole Krylov solve
         return jnp.einsum(
             "...nt,nt->...n", gathered, self.weights,
             precision=jax.lax.Precision.HIGHEST,
@@ -256,7 +256,7 @@ class Interp(LinearOperator):
         return jnp.asarray(out)
 
 
-@flax.struct.dataclass
+@struct.dataclass
 class _InterpT(LinearOperator):
     interp: Interp
 
@@ -272,7 +272,7 @@ class _InterpT(LinearOperator):
         return self.interp.as_dense().T
 
 
-@flax.struct.dataclass
+@struct.dataclass
 class SKI(LinearOperator):
     """The SKI composition W K_UU W^T (parity: runlmc/approx/ski.py:8-23)."""
 
@@ -289,7 +289,11 @@ class SKI(LinearOperator):
 
     def as_dense(self):
         Wd = self.W.as_dense()
-        return Wd @ self.grid_K.as_dense() @ Wd.T
+        hi = jax.lax.Precision.HIGHEST
+        return jnp.matmul(
+            jnp.matmul(Wd, self.grid_K.as_dense(), precision=hi), Wd.T,
+            precision=hi,
+        )
 
     def upper_eig_bound(self):
         # Parity: runlmc/approx/ski.py:22-23.

@@ -1,10 +1,11 @@
 """Structured linear-operator algebra as differentiable JAX pytrees.
 
 Functional parity with the reference's MVM operator inventory
-(runlmc/linalg/*.py — see SURVEY.md section 2.1), redesigned for TPU:
+(runlmc/linalg/*.py — see SURVEY.md section 2.1), redesigned for JAX:
 
-- every operator is a ``flax.struct`` pytree whose ``matvec`` accepts
-  *batched* operands ``v`` of shape ``(..., n)`` — a whole stack of
+- every operator is a pytree dataclass (``runlmc_tpu.utils.struct``)
+  whose ``matvec`` accepts *batched* operands ``v`` of shape ``(..., n)``
+  — a whole stack of
   right-hand sides flows through one fused XLA computation (the
   reference's ``matmat`` is a Python column loop,
   runlmc/linalg/matrix.py:55-67);
@@ -33,12 +34,12 @@ Correspondence (reference file -> class here):
 
 from typing import Any, Callable, Tuple
 
-import flax.struct
 import jax
 import jax.numpy as jnp
 import numpy as np
 
 from runlmc_tpu.ops import bttb as bttb_ops
+from runlmc_tpu.utils import struct
 
 
 class LinearOperator:
@@ -78,10 +79,10 @@ class LinearOperator:
         return _Wrapped(opshape=tuple(shape), fn=mvm)
 
 
-@flax.struct.dataclass
+@struct.dataclass
 class _Wrapped(LinearOperator):
-    fn: Callable = flax.struct.field(pytree_node=False)
-    opshape: Tuple[int, int] = flax.struct.field(pytree_node=False)
+    fn: Callable = struct.field(static=True)
+    opshape: Tuple[int, int] = struct.field(static=True)
 
     @property
     def shape(self):
@@ -91,7 +92,7 @@ class _Wrapped(LinearOperator):
         return self.fn(v)
 
 
-@flax.struct.dataclass
+@struct.dataclass
 class Dense(LinearOperator):
     """Dense matrix operator (parity: runlmc/linalg/numpy_matrix.py)."""
 
@@ -102,8 +103,9 @@ class Dense(LinearOperator):
         return self.a.shape
 
     def matvec(self, v):
-        # f32 multiplies (TPU einsum defaults to bf16): this operator is
-        # the dense oracle in tests and a Krylov operand in its own right
+        # full-f32 multiplies (the default may run f32 products in
+        # TF32 on GPUs): this operator is the dense oracle in tests and
+        # a Krylov operand in its own right
         return jnp.einsum("ij,...j->...i", self.a, v,
                           precision=jax.lax.Precision.HIGHEST)
 
@@ -115,11 +117,11 @@ class Dense(LinearOperator):
         return jnp.abs(self.a).sum(axis=1).max()
 
 
-@flax.struct.dataclass
+@struct.dataclass
 class Identity(LinearOperator):
     """Identity operator (parity: runlmc/linalg/identity.py)."""
 
-    n: int = flax.struct.field(pytree_node=False)
+    n: int = struct.field(static=True)
 
     @property
     def shape(self):
@@ -132,7 +134,7 @@ class Identity(LinearOperator):
         return 1.0
 
 
-@flax.struct.dataclass
+@struct.dataclass
 class Diag(LinearOperator):
     """Diagonal operator (parity: runlmc/linalg/diag.py)."""
 
@@ -152,7 +154,7 @@ class Diag(LinearOperator):
         return jnp.max(self.d)
 
 
-@flax.struct.dataclass
+@struct.dataclass
 class BTTB(LinearOperator):
     """Symmetric block-Toeplitz-of-Toeplitz-blocks operator over a P-dim
     grid, stored as its first row plus a precomputed Fourier symbol.
@@ -164,7 +166,7 @@ class BTTB(LinearOperator):
 
     top: Any
     symbol_fft: Any
-    sizes: Tuple[int, ...] = flax.struct.field(pytree_node=False)
+    sizes: Tuple[int, ...] = struct.field(static=True)
 
     @classmethod
     def build(cls, top, sizes):
@@ -206,7 +208,7 @@ def Toeplitz(top):
     return BTTB.build(top, (top.shape[0],))
 
 
-@flax.struct.dataclass
+@struct.dataclass
 class Kronecker(LinearOperator):
     """Lazy Kronecker product A (x) B of two square operators.
 
@@ -237,7 +239,7 @@ class Kronecker(LinearOperator):
         return self.a.upper_eig_bound() * self.b.upper_eig_bound()
 
 
-@flax.struct.dataclass
+@struct.dataclass
 class BlockDiag(LinearOperator):
     """Direct sum of (possibly rectangular) blocks (parity:
     runlmc/linalg/block_diag.py:12-49). Blocks may be heterogeneous; the
@@ -265,7 +267,7 @@ class BlockDiag(LinearOperator):
         return max(b.upper_eig_bound() for b in self.blocks)
 
 
-@flax.struct.dataclass
+@struct.dataclass
 class SymmSquareBlock(LinearOperator):
     """D x D symmetric array of equal-size square blocks (parity:
     runlmc/linalg/block_matrix.py:13-54; the reference runs a double Python
@@ -306,7 +308,7 @@ class SymmSquareBlock(LinearOperator):
         return float(np.abs(bounds).sum(axis=1).max())
 
 
-@flax.struct.dataclass
+@struct.dataclass
 class Sum(LinearOperator):
     """Lazy sum of operators (parity: runlmc/linalg/sum_matrix.py:9-45)."""
 
@@ -327,7 +329,7 @@ class Sum(LinearOperator):
         return sum(t.upper_eig_bound() for t in self.terms)
 
 
-@flax.struct.dataclass
+@struct.dataclass
 class Composition(LinearOperator):
     """Product M_1 M_2 ... M_k applied right-to-left (parity:
     runlmc/linalg/composition.py:9-22)."""

@@ -11,7 +11,7 @@ reference lists Lanczos logdet as roadmap work (reference README.md:86)
 and falls back to an O(n^3) dense Cholesky for reporting
 (runlmc/models/interpolated_llgp.py:262-276).
 
-TPU-native structure: ALL probes run one fused batched Lanczos
+Structure: ALL probes run one fused batched Lanczos
 recurrence (one batched matvec per iteration — the same fusion as the
 batched Krylov solvers in ops/solvers.py), the tiny (k, k) tridiagonal
 eigenproblems are batched on device, and the whole estimator jits.

@@ -11,11 +11,11 @@ Structure here: an *inner* Krylov cycle (<= ``cycle`` iterations, default
 residual; an *outer* refinement loop recomputes the TRUE residual
 r = b - A x, restarts the cycle on it, and keeps the best iterate.
 Restarting bounds the floating-point orthogonality drift that plain
-MINRES/CG suffer over thousands of f32 iterations on TPU, and the outer
+MINRES/CG suffer over thousands of f32 iterations, and the outer
 stall check (a cycle must cut the residual by ``stall_ratio``) stops
 cleanly at the f32 accuracy floor instead of spinning to maxiter.
 
-TPU-first design: ONE solver instance handles a whole batch of
+Batched design: ONE solver instance handles a whole batch of
 right-hand sides (observations + Hutchinson probes + prediction
 columns); each iteration performs a single fused batched matvec; per-RHS
 convergence is handled with masks. This replaces the reference's
@@ -215,9 +215,8 @@ def _refined_solve(cycle_fn, matvec, b, tol, maxiter, cycle, stall_ratio,
     while the outer loop recomputes the TRUE residual r = b - A x with
     the full-precision ``matvec`` and accumulates x in b.dtype. Each
     cycle contracts the residual by roughly the inner solve's relative
-    accuracy, so a handful of f32 cycles reach f64-level residuals at
-    f32 speed — the TPU-native answer to ill-conditioned GP systems
-    (f64 MXU matmuls cost ~3-60x f32, and XLA TPU has no f64 FFT)."""
+    accuracy, so a handful of f32 cycles reach f64-level residuals
+    with most matvecs at f32."""
     b = jnp.atleast_2d(b)
     B, n = b.shape
     if maxiter is None:

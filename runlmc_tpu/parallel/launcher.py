@@ -1,25 +1,22 @@
-"""Multi-host (pod-slice) runtime entry point.
+"""Multi-host runtime entry point.
 
 The reference's only cross-machine story is SLURM array jobs over
 INDEPENDENT benchmark configs (reference benchmarks/benchlib/
-slurm-wrapper.sh:1-25) — no single model ever spans machines. The
-TPU-native design runs ONE SPMD program across every host of a pod
-slice: each host initializes the distributed runtime, builds the same
-model, and passes a global mesh; ``jax.sharding`` + GSPMD insert the
-ICI/DCN collectives (SURVEY.md section 7 stage 8).
+slurm-wrapper.sh:1-25) — no single model ever spans machines. Here ONE
+SPMD program runs across every host: each host initializes the
+distributed runtime, builds the same model, and passes a global mesh;
+``jax.sharding`` + GSPMD insert the cross-device collectives (SURVEY.md
+section 7 stage 8).
 
-Single-process use (tests, one chip, one host) degenerates to a no-op:
-``initialize()`` without arguments on a single-host platform leaves JAX
-untouched and ``global_mesh`` falls back to local devices.
+Single-process use (tests, one device, one host) degenerates to a
+no-op: ``initialize()`` without a coordinator leaves JAX untouched and
+``global_mesh`` falls back to local devices.
 
-Launch recipe (one command per host of the slice, e.g. under GKE or
-gcloud ``--worker=all``)::
+Launch recipe (one command per host; the rendezvous is always
+explicit)::
 
-    # host i of H (TPU pods auto-discover; CPU/GPU need explicit args):
-    python train.py  # calls runlmc_tpu.parallel.initialize() first
-
-    # explicit (non-TPU or custom rendezvous):
-    COORD=10.0.0.2:8476 NPROC=2 PROC_ID=$i python train.py
+    # host i of H:
+    COORD=10.0.0.2:8476 NPROC=H PROC_ID=$i python train.py
 
 where ``train.py`` begins::
 
@@ -52,11 +49,9 @@ def initialize(coordinator_address=None, num_processes=None,
     """Initialize the multi-host runtime (idempotent).
 
     Arguments default from the environment (``COORD``, ``NPROC``,
-    ``PROC_ID``) and, on TPU pods, from the platform's own discovery —
-    there ``initialize()`` needs no arguments at all. When neither
-    arguments nor environment indicate a multi-process run, this is a
-    no-op and the program stays single-host (the degenerate mode the
-    test suite runs).
+    ``PROC_ID``). When neither arguments nor environment name a
+    coordinator and a process count, this is a no-op and the program
+    stays single-host (the degenerate mode the test suite runs).
 
     Returns True when a distributed runtime was started.
     """
@@ -69,40 +64,24 @@ def initialize(coordinator_address=None, num_processes=None,
     if process_id is None and "PROC_ID" in os.environ:
         process_id = int(os.environ["PROC_ID"])
 
-    # CRITICAL: decide WITHOUT touching the XLA backend —
+    # Decide WITHOUT touching the XLA backend —
     # jax.distributed.initialize() must run before anything that
     # initializes it (jax.devices, jax.default_backend, any
-    # computation), on every platform. TPU-pod auto-discovery is
-    # therefore detected from the environment, not the backend.
-    # MULTI-host signals only: TPU_WORKER_HOSTNAMES lists every host of
-    # the slice (a single-host TPU — e.g. this repo's test/CI image —
-    # sets it to one name, and must stay a no-op).
-    hostnames = os.environ.get("TPU_WORKER_HOSTNAMES", "")
-    on_tpu_pod = (
-        coordinator_address is None
-        and num_processes is None
-        and (
-            "," in hostnames
-            or bool(os.environ.get("MEGASCALE_COORDINATOR_ADDRESS"))
-        )
-    )
+    # computation).
     explicit = coordinator_address is not None and num_processes is not None
-    if not (on_tpu_pod or explicit):
+    if not explicit:
         _LOG.info(
             "parallel.initialize: single-process run (no coordinator "
             "configured) — distributed runtime not started"
         )
         return False
-    if explicit and process_id is None:
+    if process_id is None:
         # jax.distributed.initialize(process_id=None) fails with an
-        # opaque error deep in the rendezvous outside TPU pods (which
-        # should use the no-argument auto-discovery path instead).
-        # Name the missing knob of the documented COORD/NPROC/PROC_ID
-        # recipe.
+        # opaque error deep in the rendezvous. Name the missing knob of
+        # the documented COORD/NPROC/PROC_ID recipe.
         raise ValueError(
             "parallel.initialize: COORD/NPROC set but no process id — "
-            "set PROC_ID=<i> (or pass process_id=); TPU pods should "
-            "call initialize() with no arguments instead"
+            "set PROC_ID=<i> (or pass process_id=)"
         )
     jax.distributed.initialize(
         coordinator_address=coordinator_address,
@@ -126,8 +105,8 @@ def global_mesh(axis_name="probe", grid_axis=None):
     ``grid_axis``: optional size of a second 'grid' axis (grid-sharded
     fft matvecs; SURVEY.md section 7 stage 8) — devices are laid out so
     the 'grid' axis falls INSIDE a host wherever possible (its
-    collectives are per-matvec all-to-alls and should ride ICI, while
-    the batch axis has none).
+    collectives are per-matvec all-to-alls and should stay on the
+    host's device interconnect, while the batch axis has none).
     """
     devices = np.asarray(jax.devices())
     if grid_axis is None or grid_axis == 1:

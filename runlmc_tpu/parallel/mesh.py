@@ -1,4 +1,4 @@
-"""Device-mesh helpers — the TPU-native replacement for the reference's
+"""Device-mesh helpers — the replacement for the reference's
 ``multiprocessing.Pool`` process parallelism (SURVEY.md section 2.9).
 
 The embarrassingly-parallel axis of LMC inference is the solve batch:
@@ -9,8 +9,8 @@ as the leading axis of one array and shard that axis over a 1-D mesh
 FFTs included — with at most scalar collectives for the loop carry.
 
 For very large grids a second mesh axis ('grid') can shard the FFT
-axis; single-chip HBM fits every published benchmark config, so that
-path is reserved for pod-scale problems.
+axis; one device's memory fits every published benchmark config, so
+that path is reserved for larger grids.
 """
 
 import jax
@@ -29,7 +29,7 @@ def default_mesh(n_devices=None, axis_name="probe"):
 def probe_grid_mesh(n_probe, n_grid):
     """2-D mesh ('probe', 'grid'): the solve/probe batch shards over
     'probe'; fft-mode grid matvecs shard their Fourier axis over 'grid'
-    (the pod-scale axis for grids too large for one chip's HBM)."""
+    (the axis for grids too large for one device's memory)."""
     devices = jax.devices()[: n_probe * n_grid]
     return Mesh(
         np.asarray(devices).reshape(n_probe, n_grid), ("probe", "grid")

@@ -20,7 +20,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from runlmc_tpu import InterpolatedLLGP, LMCKernelSpec, RBF
+from runlmc_tpu import InterpolatedLLGP, LMCKernelSpec, RBF, config
 from runlmc_tpu.models.interpolated_llgp import EXACT_RESIDUAL_THRESHOLD
 from runlmc_tpu.params import POSITIVE
 
@@ -169,11 +169,11 @@ def test_escalation_on_bad_residual(rng):
 def test_escalation_targets_stochastic_without_native_f64(
     rng, monkeypatch
 ):
-    """On platforms that EMULATE the model dtype (TPU f64), escalation
-    retargets the stochastic objective — whose model-dtype Krylov
-    solves self-refine using the f32 factor as preconditioner — instead
-    of a model-dtype factorization whose compile alone takes minutes
-    (the weather benchmark's failure mode)."""
+    """On platforms without native f64 factorization
+    (config.native_f64 false), escalation retargets the stochastic
+    objective — whose model-dtype Krylov solves self-refine using the
+    f32 factor as preconditioner — instead of a model-dtype
+    factorization."""
     from runlmc_tpu import AdaDelta
 
     m32, _ = _models(rng)
@@ -185,7 +185,7 @@ def test_escalation_targets_stochastic_without_native_f64(
     _, res = _grad_at_noise(m32, 1e-6)
     if res <= EXACT_RESIDUAL_THRESHOLD:
         pytest.skip("1e-6 noise did not break f32 on this platform")
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
+    monkeypatch.setattr(config, "native_f64", lambda platform=None: False)
     info = m32.optimize(optimizer=AdaDelta(max_it=14))
     assert m32.objective == "stochastic"
     assert info["n_iter"] == 14
@@ -219,7 +219,7 @@ def test_equilibration_flip_keeps_exact_objective(rng, monkeypatch):
     _, res = _grad_at_noise(m32, 1e-6)
     if res <= EXACT_RESIDUAL_THRESHOLD:
         pytest.skip("1e-6 noise did not break f32 on this platform")
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
+    monkeypatch.setattr(config, "native_f64", lambda platform=None: False)
     flipped = not wb.EQUILIBRATE_DEFAULT
     real = lklh.f32_factorization_residual
     calls = []

@@ -3,7 +3,7 @@ certified solves, 'tiled' exact fine operator, and the in-training
 stochastic escalation.
 
 The reference runs any grid size through its CPU f64 FFT matvec
-(runlmc/linalg/bttb.py:144-148) with per-solve scipy MINRES; the TPU
+(runlmc/linalg/bttb.py:144-148) with per-solve scipy MINRES; the
 rebuild covers the same regime with (a) a COARSENED dense-mode twin of
 each oversized grid group whose f32 Woodbury factorization
 preconditions every solve (grid.GridData.coarse / precond_dense_f32),
@@ -136,7 +136,7 @@ def test_large_grid_certified_prediction(small_cap, rng, mode):
     assert all(np.all(np.asarray(v) >= 0) for v in vs)
     # sane quality after only 8 iterations: clearly beats predicting
     # the mean (full-convergence quality is covered by the bench
-    # --validate smoke and the real-TPU artifacts)
+    # --validate smoke)
     f = np.sin(8 * tx[0])
     smse = np.mean((np.asarray(mus[0]) - f) ** 2) / np.var(f)
     assert smse < 0.6, smse
@@ -165,7 +165,7 @@ def test_training_escalation_fires_and_certifies(small_cap, rng, mode,
     item 2; reference behavior to beat: iterative.py:54-58 logs
     CRITICAL and moves on). 'fft' exercises the rung-1 in-program
     rescue; 'tiled' models skip straight to the rung-2 certified
-    ladder (the rung-1 gather path costs ~30 s/step there)."""
+    ladder (the rung-1 gather path is O(m^2) per matvec there)."""
     import logging
 
     from runlmc_tpu.params import POSITIVE

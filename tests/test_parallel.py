@@ -248,9 +248,8 @@ def test_grid_only_mesh_runs(rng):
 
 
 def test_initialize_single_host_noop(rng, monkeypatch):
-    """parallel.initialize() without a coordinator on a non-TPU
-    platform must be a no-op (the degenerate single-host mode of the
-    multi-host launch recipe)."""
+    """parallel.initialize() without a coordinator must be a no-op (the
+    degenerate single-host mode of the multi-host launch recipe)."""
     import runlmc_tpu.parallel as par
 
     monkeypatch.delenv("COORD", raising=False)

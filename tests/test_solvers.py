@@ -100,7 +100,7 @@ def test_solver_jits_and_iteration_counts(rng):
 
 
 def test_sharded_rhs_batch(rng):
-    """The solve batch shards over a device mesh — the TPU analog of the
+    """The solve batch shards over a device mesh — the analog of the
     reference's multiprocessing pool (SURVEY.md section 2.9)."""
     from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
